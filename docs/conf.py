@@ -50,7 +50,7 @@ autodoc_typehints = "description"
 html_theme = "alabaster"
 html_static_path = []
 html_theme_options = {
-    "description": "TPU-native Gaussian-process hyperparameter "
-                   "estimation (JAX/XLA/Pallas)",
+    "description": "Gaussian-process hyperparameter estimation "
+                   "(JAX/XLA/Pallas)",
     "fixed_sidebar": True,
 }

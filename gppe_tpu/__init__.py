@@ -1,12 +1,12 @@
-"""gppe_tpu — TPU-native Gaussian-process hyperparameter estimation.
+"""gppe_tpu — accelerator-native Gaussian-process hyperparameter estimation.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of the reference
 package ``gaussian_proc`` (ameli/gaussian-process-param-estimation):
 Matern covariance assembly, the mixed-correlation operator K + eta*I,
 restricted/profile likelihood maximization, stochastic trace estimation
 (Hutchinson / SLQ), and posterior sampling (HMC/NUTS) over kernel
-hyperparameters — all built TPU-first (device meshes, collectives, fused
-Pallas kernels) rather than as a translation of the reference's
+hyperparameters — built around device meshes, collectives and fused GPU
+kernels rather than as a translation of the reference's
 Cython/OpenMP/imate stack.
 
 Public API mirrors the reference's exports (reference:

@@ -37,26 +37,23 @@ class SpectralData(NamedTuple):
 
 def make_spectral_data(K_mixed, X, z):
     """Rotate (X, z) into the eigenbasis held by a MixedCorrelation and
-    promote to the inference precision/device.
+    promote to the inference precision.
 
-    Heterogeneous split: the O(n^2 m) rotation runs on the accelerator in
-    its compute dtype (f32 on TPU, full-precision accumulation); the
-    resulting O(n m) data is placed on the inference device (host CPU on
-    TPU sessions) in float64, where every likelihood / derivative / root
-    evaluation is an O(n m) f64 op. Validated: f32 basis + f64 scalars
-    reproduces the full-f64 optimum to 6 significant digits, while pure
-    f32 scalars are qualitatively wrong.
+    The O(n^2 m) rotation runs in the compute dtype (f32 on the GPU, full-
+    precision products); the resulting O(n m) data is promoted to float64,
+    where every likelihood / derivative / root evaluation is an O(n m)
+    f64 op. Validated: f32 basis + f64 scalars reproduces the full-f64
+    optimum to 6 significant digits, while pure f32 scalars are
+    qualitatively wrong.
     """
-    from ..utils.config import (ensure_inference_precision, inference_device,
-                                inference_dtype)
+    from ..utils.config import ensure_inference_precision, inference_dtype
     ensure_inference_precision()
-    dev = inference_device()
     dt = inference_dtype()
     Xt = K_mixed.rotate(jnp.asarray(X))
     zt = K_mixed.rotate(jnp.asarray(z))
 
     def promote(a):
-        return jax.device_put(jnp.asarray(a), dev).astype(dt)
+        return jnp.asarray(a).astype(dt)
 
     return SpectralData(lam=promote(K_mixed.eigenvalues),
                         Xt=promote(Xt), zt=promote(zt))
@@ -65,8 +62,7 @@ def make_spectral_data(K_mixed, X, z):
 def _spd_inv_logdet(B):
     """Inverse and logdet of a small SPD matrix via Cholesky.
 
-    (TPU has no f64 LU; B = X^T Kn^-1 X is SPD so Cholesky is the right
-    primitive anyway.)
+    (B = X^T Kn^-1 X is SPD, so Cholesky is the right primitive.)
     """
     L = jnp.linalg.cholesky(B)
     eye = jnp.eye(B.shape[0], dtype=B.dtype)

@@ -12,9 +12,9 @@ eta-dependence of ONE kernel; this module amortizes the *grid*:
    the shared augmented block [z, X, probes]. Small n materializes the
    (b, n, n) chunk once (vmapped fused distance+Matern; traced nu runs
    the pure-JAX Bessel K_nu branch); large n runs MATRIX-FREE — the
-   multi-rho Pallas kernel computes each pairwise-distance tile once and
+   multi-rho GPU kernel computes each pairwise-distance tile once and
    reuses it across the whole rho batch (rho only rescales distance), so
-   each extra grid point costs one exp + one MXU dot per tile, and the
+   each extra grid point costs one exp + one tile product, and the
    grid path reaches the same N as the single-operator engine
    (ops.pallas_kernels.matern_matmat_multirho; general nu falls back to
    a row-blocked on-the-fly traced-nu matvec).
@@ -67,9 +67,9 @@ def _factorize_chunk_matrixfree(points, rhos, nus, AB, k, s, nu_static,
     (VERDICT r2 item 3 — the dense chunk died around n ~ 3e4).
 
     Two matvec engines:
-    * ``use_pallas`` (TPU + closed-form nu): the fused multi-rho kernel —
+    * ``use_pallas`` (GPU + closed-form nu): the fused multi-rho kernel —
       one pairwise-distance tile shared across the whole rho batch, each
-      rho paying only an exp + an MXU dot
+      rho paying only an exp + a tile product
       (ops.pallas_kernels.matern_matmat_multirho).
     * general (rho, nu): a lax.map over grid points of a row-blocked
       on-the-fly matvec with the traced-nu Bessel branch — O(block * n)
@@ -105,20 +105,6 @@ def _factorize_chunk_matrixfree(points, rhos, nus, AB, k, s, nu_static,
                 points, rhos, W, nu_static)
             return out.astype(W.dtype)
 
-        def tk2_pallas():
-            # trace(K_b^2) accumulated INSIDE the multirho kernel: one
-            # extra pass whose distance work is shared across the whole
-            # rho batch, vs the per-point re-derivation of the blocked
-            # XLA form (ADVICE r3: an O(B n^2) transcendental pass at
-            # setup otherwise)
-            B = rhos.shape[0]
-            dummy = jnp.zeros((B, n, 1), dtype=points.dtype)
-            _, tk2 = pallas_kernels.matern_matmat_multirho(
-                points, rhos, dummy, nu_static, return_frobenius=True)
-            return tk2.astype(jnp.float64 if jax.config.jax_enable_x64
-                              else jnp.float32)
-        return _factorize_common(points, rhos, nus, AB, k, s, bmv,
-                                 tk2_pallas)
     else:
         def bmv(W):
             def one(args):
@@ -130,6 +116,8 @@ def _factorize_chunk_matrixfree(points, rhos, nus, AB, k, s, nu_static,
             return jax.lax.map(one, (rhos, nus, W))
 
     def tk2():
+        # the plain blocked reduction also on the fused-kernel path: an
+        # in-kernel ||K_b||_F^2 measured slower on the GPU (PERF.md);
         # padded rows are far from every real column point -> ~0
         def one(args):
             rho, nu = args
@@ -191,11 +179,12 @@ class GridKrylovProfileLikelihood:
         instead of the general Bessel path. ``chunk``: kernels per batch
         (default sized so device memory per chunk stays under
         ``max_chunk_bytes``). ``matrix_free``: never materialize the
-        (b, n, n) kernel chunk — on-the-fly tiles (the multi-rho Pallas
-        kernel on TPU for closed-form nu, a row-blocked traced-nu matvec
+        (b, n, n) kernel chunk — on-the-fly tiles (the multi-rho fused
+        kernel on the GPU for closed-form nu, a row-blocked traced-nu matvec
         otherwise); default auto: dense below n=8192, matrix-free above
         (where the dense chunk would exceed ~0.5 GB/kernel)."""
-        from ..utils.config import compute_dtype, is_tpu
+        from ..ops import pallas_kernels
+        from ..utils.config import compute_dtype
 
         dtype = compute_dtype()
         points = np.asarray(points, dtype=np.float64)
@@ -227,9 +216,8 @@ class GridKrylovProfileLikelihood:
         if matrix_free is None:
             matrix_free = self.n > 8192
         self.matrix_free = bool(matrix_free)
-        use_pallas = (self.matrix_free and is_tpu() and nu_static is not None
-                      and (nu_static in (0.5, 1.5, 2.5)
-                           or nu_static >= 100.0))
+        use_pallas = (self.matrix_free
+                      and pallas_kernels.use_fused_kernel(nu_static))
 
         itemsize = jnp.dtype(dtype).itemsize
         if chunk is None:

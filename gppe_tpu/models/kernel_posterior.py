@@ -5,11 +5,11 @@ likelihood at the inner-optimal (sigma, sigma0)
 (reference: examples/FindOptimalCovarianceParameters.py:87-199 —
 PartialLikelihoodFunction), optionally times a prior, on a process pool.
 
-TPU-native redesign: ``profile_loglik(log10_eta, log10_rho)`` is one
+Redesign: ``profile_loglik(log10_eta, log10_rho)`` is one
 jittable, differentiable pipeline — fused Matern assembly, Cholesky
 factorization, batched triangular solves, profiled sigma^2 = zMz/(n-m) —
 so outer grids, global optimizers and HMC chains are *vmapped batches of
-Cholesky factorizations on the MXU* instead of process pools. Gradients
+Cholesky factorizations on the device* instead of process pools. Gradients
 for HMC come from autodiff through the whole pipeline (Cholesky has
 stable derivatives, unlike eigh on clustered spectra).
 """
@@ -38,10 +38,10 @@ def make_profile_loglik(points, z, X, nu=0.5, dtype=None):
     n, m = X_.shape
 
     def lp(log10_eta, log10_rho):
-        # full-f32 matmul accumulation: the TPU default matmul precision is
-        # bf16-grade, which puts O(1) noise on the log-likelihood — enough
-        # to wreck HMC/NUTS energy differences (measured: single-transition
-        # accept 0.14 vs 0.99). HIGHEST costs 3 MXU passes and is required.
+        # full-f32 matmul accumulation: a reduced-precision (bf16/TF32)
+        # product puts O(1) noise on the log-likelihood — enough to wreck
+        # HMC/NUTS energy differences (measured: single-transition accept
+        # 0.14 vs 0.99). HIGHEST is required.
         with jax.default_matmul_precision("highest"):
             eta = jnp.power(10.0, jnp.asarray(log10_eta, dtype))
             rho = jnp.power(10.0, jnp.asarray(log10_rho, dtype))

@@ -2,13 +2,13 @@
 
 The reference's scaling path (SURVEY.md §3.2, §5.7) evaluates the profile
 derivative at a sequence of etas, each eval doing fresh O(n^3)/O(n^2)
-solves + traces. The TPU-native design factors the *entire* eta-dependence
+solves + traces. This design factors the *entire* eta-dependence
 out of the large-n work:
 
 1. ONE batched Lanczos pass on the accelerator tridiagonalizes K against
    the augmented right-hand-side block [z, X] (for solves) and random
    probes (for traces): O(k) fused Matern matvecs total, each a
-   multi-RHS matmul onto the MXU (K never materialized — see
+   multi-RHS product (K never materialized — see
    gppe_tpu.ops.operators / pallas_kernels).
 2. The small projections U (basis . data) and G (basis . basis Grams) are
    computed on-device once and shipped to the host.
@@ -87,8 +87,7 @@ class KrylovProfileLikelihood:
 
         # ONE merged Lanczos pass over [z, X, v_defl, probes]: the solve
         # block, the deflation chain, and the trace probes all ride the
-        # same batched matvecs (the Pallas matvec pads the RHS width to
-        # 128 lanes anyway). The deflation happens *after the fact* via
+        # same batched matvecs. The deflation happens *after the fact* via
         # the one-pass quadrature collapse (ops.stochastic
         # .deflated_quadrature) — no separate deflation Lanczos program
         # to run OR compile, which halves both the setup's matvec count

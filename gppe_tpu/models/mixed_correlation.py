@@ -1,6 +1,6 @@
 """The mixed-correlation operator K + eta*I.
 
-TPU-native redesign of the reference's ``MixedCorrelation`` wrapper over
+Redesign of the reference's ``MixedCorrelation`` wrapper over
 imate (reference: gaussian_proc/_mixed_correlation/mixed_correlation.py:25-335).
 Same public surface — ``trace``, ``traceinv``, ``logdet``, ``solve``,
 ``dot``, ``get_matrix_size`` with an ``eta`` parameter and optional integer
@@ -90,10 +90,10 @@ class MixedCorrelation:
                  interpolant_points=None, options=None, dtype=None,
                  dense_threshold=4096):
         """``dtype`` controls the precision of the on-device factorizations
-        (eigh/cholesky/matvecs). Default: float32 on TPU (f64 there is
-        unusably slow emulation), x64 policy on CPU. The *inference
+        (cholesky/matvecs; the eigendecomposition itself runs in f64).
+        Default: float32 on the GPU, x64 policy on CPU. The *inference
         scalars* built from this operator are separately promoted to
-        float64 on the host — see direct_likelihood.make_spectral_data.
+        float64 — see direct_likelihood.make_spectral_data.
 
         ``dense_threshold``: scipy-sparse K requested with an exact
         backend (eigenvalue/cholesky) is densified up to this n (the
@@ -147,10 +147,8 @@ class MixedCorrelation:
         else:
             self.n = self.K.shape[0]
             if method == "eigenvalue":
-                # one-time O(n^3) precompute; on TPU sessions this runs as
-                # native f64 LAPACK on the host CPU (~21x faster than the
-                # on-chip iterative eigh at n=4096) — see linalg.host_eigh
-                lam, Q = linalg.host_eigh(self.K, out_dtype=self.dtype)
+                # one-time O(n^3) precompute in f64 (see linalg.eigh_f64)
+                lam, Q = linalg.eigh_f64(self.K, out_dtype=self.dtype)
                 self.eigenvalues = lam
                 self.eigenvectors = Q
             else:
@@ -190,9 +188,8 @@ class MixedCorrelation:
     def rotate(self, V):
         """Q^T V — coordinates in the eigenbasis (eigenvalue method only).
 
-        Full-f32 accumulation (precision='highest'): the TPU default matmul
-        precision is bf16-grade, which is not enough for the likelihood's
-        cancellations.
+        Full-f32 accumulation (precision='highest'): a reduced-precision
+        (TF32) product is not enough for the likelihood's cancellations.
         """
         if self.eigenvectors is None:
             raise ValueError("rotate() requires method='eigenvalue'")

@@ -7,7 +7,7 @@ generalized U-turn criterion of Betancourt 2017). The Bayesian
 counterpart of the reference's grid/MAP outer loop
 (reference: examples/FindOptimalCovarianceParameters.py).
 
-TPU-native design constraints drive the implementation:
+Accelerator design constraints drive the implementation:
 
 * XLA needs static control flow, so the recursive tree build is
   expressed ITERATIVELY: a ``lax.while_loop`` over tree doublings with an
@@ -16,7 +16,7 @@ TPU-native design constraints drive the implementation:
   (the standard iterative formulation of NUTS used by JAX-native PPLs;
   leaf -> checkpoint indexing via popcount/trailing-ones bit arithmetic).
 * chains are a vmapped batch axis (vmap of while_loop runs all chains
-  until the slowest terminates — on TPU the lanes are free anyway), and
+  until the slowest terminates — the batch lanes are cheap), and
   the chain axis shards over the mesh like hmc.sample_posterior.
 * warmup adaptation matches hmc.py: dual-averaging step size on the
   per-trajectory mean acceptance statistic, Welford diagonal mass.

@@ -23,8 +23,7 @@ from .direct_likelihood import (SpectralData, _spd_inv_logdet,  # noqa: F401
 def _eta_stats(data, eta):
     """Shared per-eta pieces: Yt = D Xt, B, Binv, Mzt (Kn-scale, no sigma).
 
-    B is SPD, so its inverse/logdet go through Cholesky (also required:
-    TPU has no f64 LU kernel)."""
+    B is SPD, so its inverse/logdet go through Cholesky."""
     lam, Xt, zt = data
     D = 1.0 / (lam + eta)
     Yt = D[:, None] * Xt

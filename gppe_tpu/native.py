@@ -1,7 +1,8 @@
 """ctypes bindings for the native host library (C++/OpenMP).
 
-Builds native/libgppe_native.so on first use (make) and falls back to the
-pure-Python paths when a toolchain is unavailable. The native pieces
+Builds native/build/libgppe_native.so with ``make -C native`` every time it
+is first loaded in a process (a no-op when it is up to date); falls back to
+the pure-Python paths when a toolchain is unavailable. The native pieces
 cover the reference's host-native roles
 (reference: Cython/OpenMP assembly, _generate_sparse_correlation.pyx):
 cell-binned tapered CSR construction at O(n k) with lock-free two-pass
@@ -16,7 +17,8 @@ import numpy as np
 
 _NATIVE_DIR = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "native")
-_LIB_PATH = os.path.join(_NATIVE_DIR, "libgppe_native.so")
+
+_LIB_PATH = os.path.join(_NATIVE_DIR, "build", "libgppe_native.so")
 
 _lib = None
 _load_failed = False
@@ -27,7 +29,12 @@ def _load():
     if _lib is not None or _load_failed:
         return _lib
     try:
-        if not os.path.isfile(_LIB_PATH):
+        import fcntl
+
+        # one build at a time across processes (test workers start
+        # together on a fresh checkout)
+        with open(os.path.join(_NATIVE_DIR, ".build.lock"), "w") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)
             subprocess.run(["make", "-C", _NATIVE_DIR], check=True,
                            capture_output=True, timeout=120)
         lib = ctypes.CDLL(_LIB_PATH)

@@ -1,9 +1,9 @@
 """Covariance/correlation matrix assembly.
 
-TPU-native replacement for the reference's OpenMP Cython assembly
+Replacement for the reference's OpenMP Cython assembly
 (reference: gaussian_proc/generate_correlation/_generate_dense_correlation.pyx:25-162
 and generate_correlation.py:32-222). Dense assembly is a fused
-pairwise-distance + Matern evaluation that XLA maps onto the MXU; very
+pairwise-distance + Matern evaluation that XLA fuses on the device; very
 large N never materializes K at all (see :mod:`gppe_tpu.ops.operators`
 matrix-free path). Tapered ("sparse") assembly lives in
 :mod:`gppe_tpu.ops.taper`.
@@ -29,7 +29,7 @@ def dense_correlation(points, scale, nu, dtype=None):
     """Dense Matern correlation matrix K (n x n) from points (n x d).
 
     ``nu`` static floats trace a single kernel branch. Assembly runs in
-    the compute dtype (f32 on TPU) regardless of the x64 mode — the
+    the compute dtype (f32 on the GPU) regardless of the x64 mode — the
     inference layer re-promotes what it needs.
     """
     from ..utils.config import compute_dtype
@@ -65,7 +65,7 @@ def generate_correlation(points, correlation_scale=0.1, nu=0.5, grid=True,
 
     Returns a dense jnp array, or a scipy CSR matrix when ``sparse=True``
     (exact tapered correlation, built by the native C++/OpenMP cell-binned
-    builder when available; the scalable on-TPU form of the same object is
+    builder when available; the scalable on-device form of the same object is
     :class:`gppe_tpu.ops.taper.TaperedMaternOperator`).
     """
     points = jnp.asarray(points)

@@ -7,7 +7,7 @@ MinimizeTerminator/MinimizeTerminated, :347-366 optimizer menu). Here:
 
 * differential evolution runs fully on-device — each generation's
   population is ONE vmapped batch of objective evaluations (batched
-  assembly+Cholesky on the MXU), the whole evolution a ``lax.scan``;
+  assembly+Cholesky), the whole evolution a ``lax.scan``;
 * convergence-based early termination is a mask inside the scan (no
   exceptions needed — the reference used them only because scipy's tol
   semantics were unreliable, :219-230).
@@ -45,7 +45,7 @@ def _de_jit(objective, bounds, key, popsize=50,
             terminate_atol=0.0):
     """Minimize ``objective`` (vector -> scalar, jittable) over box
     ``bounds`` (D, 2). best/1/bin scheme; the population evaluates as one
-    vmapped batch per generation (the TPU replacement for
+    vmapped batch per generation (the on-device replacement for
     ``workers=-1``, reference :347-349).
 
     ``terminate_atol``: stop as soon as the best value improves by less

@@ -1,11 +1,11 @@
-"""Matern correlation kernel and anisotropic distances, vectorized for TPU.
+"""Matern correlation kernel and anisotropic distances, vectorized.
 
 Re-designs the reference's scalar nogil-Cython kernels
 (reference: gaussian_proc/generate_correlation/_kernels.pyx:17-136) as
 array-level JAX ops: the closed-form nu branches become selectable
 expressions, general nu uses the pure-JAX Bessel K_nu from
 :mod:`gppe_tpu.ops.special`, and pairwise distances are computed with the
-Gram-matrix (MXU/matmul) formulation instead of scalar loops.
+array (difference or Gram-matrix) formulations instead of scalar loops.
 
 Branch semantics match the reference exactly
 (_kernels.pyx:73-93): x == 0 -> 1; nu in {1/2, 3/2, 5/2} closed forms;
@@ -27,7 +27,7 @@ def _matern_general(x, nu):
     underflows and K_nu overflows float32 separately around nu ~ 10 even
     though their product is a correlation in (0, 1] — the value-space
     form NaN'd the f32 traced-nu path the posterior-over-nu sampler
-    runs on TPU."""
+    runs on the device."""
     z = jnp.sqrt(2.0 * nu) * x
     z = jnp.maximum(z, jnp.asarray(1e-30, x.dtype))
     log_pref = (1.0 - nu) * jnp.log(2.0) - gammaln(nu) + nu * jnp.log(z)
@@ -90,12 +90,12 @@ def scaled_distance(p1, p2, scale):
 def pairwise_scaled_distance(points_a, points_b, scale):
     """All-pairs anisotropic distance matrix.
 
-    TPU-native replacement for the reference's OpenMP row loop
+    Replacement for the reference's OpenMP row loop
     (_generate_dense_correlation.pyx:76-91). For spatial dimensions (d <= 8,
     the GP use case) the exact difference form sum_d ((a_d-b_d)/s_d)^2 is
-    used: it is cancellation-free and XLA fuses the tiny-d reduction on the
-    VPU. For high-dimensional points the Gram/MXU form
-    ||a||^2+||b||^2-2a.b (one matmul on the MXU) is used instead.
+    used: it is cancellation-free and XLA fuses the tiny-d reduction. For
+    high-dimensional points the Gram form ||a||^2+||b||^2-2a.b (one
+    matmul) is used instead.
     """
     scale = jnp.asarray(scale)
     a = jnp.asarray(points_a) / scale

@@ -1,6 +1,6 @@
 """Dense and iterative linear algebra building blocks.
 
-TPU-native replacement for the reference's solver dispatch
+Replacement for the reference's solver dispatch
 (reference: gaussian_proc/_mixed_correlation/_linear_solver.py:24-73 —
 scipy dense solve / sparse CG) and for the exact trace/logdet paths that
 the reference delegates to imate (mixed_correlation.py:183-191,250-261).
@@ -13,39 +13,26 @@ import jax
 import jax.numpy as jnp
 
 
-def host_eigh(K, out_dtype=None):
-    """Symmetric eigendecomposition, routed to the host CPU on TPU sessions.
+def eigh_f64(K, out_dtype=None):
+    """Symmetric eigendecomposition in float64 on the default device.
 
     The exact-eigenvalue path (reference: mixed_correlation.py:76-79 —
     one scipy eigh, then O(n) per optimizer step) is a ONE-TIME O(n^3)
-    precompute. On TPU, ``jnp.linalg.eigh``'s iterative blocked algorithm
-    is a poor fit (~190 s at n = 4096 on one v5e chip, f32 only); native
-    f64 LAPACK on the host CPU does it in ~9 s with full accuracy. The
-    per-step spectral likelihood math stays on-device. On CPU sessions
-    this is just eigh under the x64 policy.
-
-    Returns (eigenvalues, eigenvectors) cast to ``out_dtype`` (default:
-    K's dtype) on the default device.
+    precompute; running it in f64 keeps the small eigenvalues that the
+    likelihood's (lam + eta)^-1 terms amplify. Returns (eigenvalues,
+    eigenvectors) cast to ``out_dtype`` (default: K's dtype).
     """
-    from ..utils.config import is_tpu
-    out_dtype = out_dtype or K.dtype
-    if is_tpu():
-        cpu = jax.devices("cpu")[0]
-        Kh = jax.device_put(jnp.asarray(K), cpu).astype(jnp.float64)
-        with jax.default_device(cpu):
-            lam, Q = jnp.linalg.eigh(Kh)
-        return (jax.device_put(lam.astype(out_dtype)),
-                jax.device_put(Q.astype(out_dtype)))
-    with jax.default_matmul_precision("highest"):
-        lam, Q = jnp.linalg.eigh(jnp.asarray(K))
-    return lam.astype(out_dtype), Q.astype(out_dtype)
+    out_dtype = out_dtype or jnp.asarray(K).dtype
+    with jax.enable_x64(True):
+        lam, Q = jnp.linalg.eigh(jnp.asarray(K).astype(jnp.float64))
+        return lam.astype(out_dtype), Q.astype(out_dtype)
 
 
 def cholesky_factor(Kn):
     """Lower Cholesky factor of an SPD matrix (XLA's blocked kernel).
 
     Traced under highest matmul precision: the blocked factorization's
-    inner matmuls at TPU-default (bf16-grade) precision lose ~3 digits.
+    inner f32 matmuls at reduced (TF32) precision lose ~3 digits.
     """
     with jax.default_matmul_precision("highest"):
         return jnp.linalg.cholesky(Kn)
@@ -71,7 +58,7 @@ def cholesky_traceinv(L, exponent: int = 1):
     """
     n = L.shape[0]
     eye = jnp.eye(n, dtype=L.dtype)
-    # full-f32 accumulation: TPU default matmul precision is bf16-grade
+    # full-f32 products (an f32 GPU matmul may otherwise run in TF32)
     with jax.default_matmul_precision("highest"):
         Linv = jax.scipy.linalg.solve_triangular(L, eye, lower=True)
         if exponent == 1:
@@ -101,7 +88,7 @@ def cg_solve(A, B, tol=1e-6, max_iter=1000, M_diag=None, shift=0.0):
     fresh lambda per call would recompile every time. ``shift`` is traced,
     so one compilation serves every eta of the affine family.
     ``B``: (n,) or (n, k) right-hand sides solved simultaneously (each
-    column has its own alpha/beta — a batched CG, the TPU-friendly
+    column has its own alpha/beta — a batched CG, the accelerator-friendly
     replacement for the reference's per-column scipy CG loop
     (_linear_solver.py:49-60)).
     Runs a fixed-shape while_loop with per-column convergence masking.

@@ -8,7 +8,7 @@ value/grad/Hessian come from ``jax.grad``/``jax.hessian`` of the jitted
 objective, the trust-region subproblem for the k-dimensional hyperparameter
 vector (k = 2..4) is solved *exactly* via eigendecomposition + bisection on
 the Levenberg parameter, and the optimizer itself is jit/vmap-compatible so
-grids of MLE problems batch onto the TPU.
+grids of MLE problems batch onto the device.
 """
 
 from functools import partial

@@ -2,7 +2,7 @@
 
 Re-implements the reference's root-finding toolkit
 (reference: gaussian_proc/_likelihood/_root_finding.py:21-148 bracketing,
-:155-309 Chandrupatla) with two differences dictated by TPU execution:
+:155-309 Chandrupatla) with two differences dictated by XLA execution:
 
 * the Chandrupatla iteration is a ``lax.while_loop`` over *array* state
   with per-lane termination masks, so an entire batch of root problems

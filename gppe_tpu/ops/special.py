@@ -4,7 +4,8 @@ The reference obtains the modified Bessel function of the second kind
 K_nu and the Gamma function from ``scipy.special.cython_special`` inside a
 nogil Cython kernel (reference: gaussian_proc/generate_correlation/_kernels.pyx:6,87-88).
 JAX has no ``kv``; this module implements it from scratch so that general-nu
-Matern kernels are jittable, vmappable, differentiable-in-x, and run on TPU.
+Matern kernels are jittable, vmappable, differentiable-in-x, and run on the
+accelerator.
 
 Algorithm (classic Temme / Thompson-Barnett approach, as popularized by
 Numerical Recipes' ``bessik``):

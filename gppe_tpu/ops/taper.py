@@ -1,4 +1,4 @@
-"""Kernel tapering ("sparse" correlation) — TPU-native block-sparse form.
+"""Kernel tapering ("sparse" correlation) — block-sparse form.
 
 The reference sparsifies K by dropping entries whose kernel value falls
 below a threshold estimated from the requested density via d-ball
@@ -8,14 +8,14 @@ geometry, building CSR with OpenMP threads and a retry-on-overflow loop
 
 Here the same statistical object is expressed two ways:
 
-* ``generate_tapered_correlation`` — host-side exact CSR (scipy) via
-  blocked evaluation, for API parity and moderate n;
+* ``generate_tapered_correlation`` — host-side exact CSR (scipy), built
+  natively or from a KD-tree, for API parity and moderate n;
 * ``TaperedMaternOperator`` — the scalable path: points are spatially
   sorted (grid-cell keys) so near points share tiles, a tile-pair
   adjacency mask is computed from tile bounding boxes and the taper
   radius, and matvecs touch only active tiles. The kernel value mask
-  (k >= threshold) matches the reference's hard taper exactly. On TPU
-  the active tiles run through the fused Pallas kernel; K is never
+  (k >= threshold) matches the reference's hard taper exactly. On the
+  GPU the active tiles run through the fused Pallas kernel; K is never
   materialized.
 
 Since k(.; nu) is monotone decreasing, the taper "k >= threshold" is the
@@ -23,11 +23,14 @@ distance ball "d <= kernel_radius" — tiles are pruned on distance,
 entries masked on kernel value.
 """
 
+from functools import partial
+
 import numpy as np
 
+import jax
 import jax.numpy as jnp
 
-from . import kernels
+from . import kernels, pallas_kernels
 
 
 # -- d-ball threshold math (reference :208-465, formulas preserved; the
@@ -115,8 +118,7 @@ def estimate_max_nnz(matrix_size, correlation_scale, dimension, density):
 
 # -- host CSR builder (API parity with the reference) ---------------------
 
-def generate_tapered_correlation(points, scale, nu, density, verbose=False,
-                                 block_rows=2048):
+def generate_tapered_correlation(points, scale, nu, density, verbose=False):
     """Exact tapered correlation as scipy CSR (reference
     generate_sparse_correlation:472-594 semantics: keep k >= tau)."""
     import scipy.sparse
@@ -145,19 +147,21 @@ def generate_tapered_correlation(points, scale, nu, density, verbose=False,
                   f"density={csr.nnz / n ** 2:.3e}")
         return csr
 
-    rows, cols, vals = [], [], []
-    for start in range(0, n, block_rows):
-        stop = min(start + block_rows, n)
-        diff = pts_scaled[start:stop, None, :] - pts_scaled[None, :, :]
-        dist = np.sqrt((diff ** 2).sum(-1))
-        kblk = np.asarray(kernels.matern(dist, float(nu)))
-        r, c = np.nonzero(kblk >= tau)
-        rows.append(r + start)
-        cols.append(c)
-        vals.append(kblk[r, c])
-    rows = np.concatenate(rows)
-    cols = np.concatenate(cols)
-    vals = np.concatenate(vals)
+    # scipy KD-tree fallback (O(n k)): candidate pairs within a slightly
+    # widened radius, then the exact k >= tau mask on kernel values
+    import scipy.spatial
+
+    pairs = scipy.spatial.cKDTree(pts_scaled).query_pairs(
+        radius * (1.0 + 1e-9), output_type="ndarray")
+    dist = np.sqrt(((pts_scaled[pairs[:, 0]] - pts_scaled[pairs[:, 1]])
+                    ** 2).sum(-1))
+    kval = np.asarray(kernels.matern(dist, float(nu)))
+    keep = kval >= tau
+    i, j, kval = pairs[keep, 0], pairs[keep, 1], kval[keep]
+    diag = np.arange(n)
+    rows = np.concatenate([i, j, diag])
+    cols = np.concatenate([j, i, diag])
+    vals = np.concatenate([kval, kval, np.ones(n)])
     csr = scipy.sparse.csr_matrix((vals, (rows, cols)), shape=(n, n))
     if verbose:
         print(f"tapered correlation: n={n} tau={tau:.3e} "
@@ -181,12 +185,15 @@ def spatial_sort(points, cell_size):
 
 class TaperedMaternOperator:
     """Block-sparse tapered Matern operator: matvec touches only tile
-    pairs within the taper radius. The TPU-scaling replacement for the
+    pairs within the taper radius. The scalable replacement for the
     reference's CSR path (N = 2^20 with O(density n^2) work)."""
 
     def __init__(self, points, scale, nu=0.5, density=0.001, tile=512,
                  dtype=None, use_pallas=None):
-        from ..utils.config import compute_dtype, is_tpu
+        """``use_pallas``: run the fused GPU kernel
+        (ops.pallas_kernels.matern_matmat_blocksparse); default
+        :func:`pallas_kernels.use_fused_kernel`."""
+        from ..utils.config import compute_dtype
         dtype = dtype or compute_dtype()
         points = np.asarray(points, dtype=np.float64)
         n, d = points.shape
@@ -230,13 +237,17 @@ class TaperedMaternOperator:
         order = np.lexsort((pj, pi))      # sort by row tile then col tile
         self.pair_i = pi[order].astype(np.int32)
         self.pair_j = pj[order].astype(np.int32)
+        # CSR form of the pairs: row tile i owns pair_j[rowptr[i]:rowptr[i+1]]
+        self.rowptr = np.concatenate(
+            [[0], np.cumsum(np.bincount(self.pair_i, minlength=num_tiles))]
+        ).astype(np.int32)
         self.num_tiles = num_tiles
         self.tile_density = len(self.pair_i) / num_tiles ** 2
 
         self.points_sorted = jnp.asarray(pts_sorted, dtype=dtype)
         self.dtype = dtype
         if use_pallas is None:
-            use_pallas = is_tpu() and self.nu in (0.5, 1.5, 2.5)
+            use_pallas = pallas_kernels.use_fused_kernel(self.nu)
         self.use_pallas = use_pallas
 
     @property
@@ -258,73 +269,91 @@ class TaperedMaternOperator:
                 [Vs, jnp.zeros((self.n_pad - self._n, V.shape[1]),
                                dtype=self.dtype)], axis=0)
         if self.use_pallas:
-            from . import pallas_kernels
             out = pallas_kernels.matern_matmat_blocksparse(
                 self.points_sorted, Vs, self.nu, self.threshold,
-                self.pair_i, self.pair_j, self.tile)
+                self.rowptr, self.pair_j, self.tile).astype(self.dtype)
         else:
-            out = self._matmat_blocked(Vs)
+            out = _blocksparse_matmat_xla(
+                self.points_sorted, Vs, jnp.asarray(self.pair_i),
+                jnp.asarray(self.pair_j), self.nu, self.threshold,
+                self.tile)
         out = out[:self._n][self.inv_perm]
         return out[:, 0] if squeeze else out
 
     def matvec(self, v):
         return self.matmat(v)
 
-    def _matmat_blocked(self, Vs):
-        """XLA fallback: loop over active tile pairs (scan), masked."""
-        import jax
-        t = self.tile
-        pts = self.points_sorted
-        pair_i = jnp.asarray(self.pair_i)
-        pair_j = jnp.asarray(self.pair_j)
-        out = jnp.zeros((self.n_pad, Vs.shape[1]), dtype=self.dtype)
-        tau = self.threshold
-
-        def body(out, pair):
-            i, j = pair
-            rows = jax.lax.dynamic_slice(pts, (i * t, 0), (t, pts.shape[1]))
-            colsp = jax.lax.dynamic_slice(pts, (j * t, 0),
-                                          (t, pts.shape[1]))
-            vblk = jax.lax.dynamic_slice(Vs, (j * t, 0), (t, Vs.shape[1]))
-            dist = kernels.pairwise_scaled_distance(rows, colsp, 1.0)
-            kblk = kernels.matern(dist, self.nu)
-            kblk = jnp.where(kblk >= tau, kblk, 0.0)
-            acc = jnp.matmul(kblk, vblk, precision="highest")
-            return jax.lax.dynamic_update_slice(
-                out, jax.lax.dynamic_slice(
-                    out, (i * t, 0), (t, Vs.shape[1])) + acc,
-                (i * t, 0)), None
-
-        pairs = jnp.stack([pair_i, pair_j], axis=1).astype(
-            jnp.asarray(0).dtype)  # match dynamic_slice index dtype
-        out, _ = jax.lax.scan(body, out, pairs)
-        return out
-
     def trace_pow(self, exponent):
         if exponent in (0, 1):
             return jnp.asarray(float(self._n), dtype=self.dtype)
         if exponent == 2:
-            # sum of squared *tapered* entries over active tiles
-            import jax
-            t = self.tile
-            pts = self.points_sorted
-            tau = self.threshold
-
-            def body(acc, pair):
-                i, j = pair
-                rows = jax.lax.dynamic_slice(pts, (i * t, 0),
-                                             (t, pts.shape[1]))
-                colsp = jax.lax.dynamic_slice(pts, (j * t, 0),
-                                              (t, pts.shape[1]))
-                dist = kernels.pairwise_scaled_distance(rows, colsp, 1.0)
-                kblk = kernels.matern(dist, self.nu)
-                kblk = jnp.where(kblk >= tau, kblk, 0.0)
-                return acc + jnp.sum(kblk * kblk), None
-
-            pairs = jnp.stack([jnp.asarray(self.pair_i),
-                               jnp.asarray(self.pair_j)], axis=1).astype(
-                jnp.asarray(0).dtype)
-            acc, _ = jax.lax.scan(body, jnp.asarray(0.0, self.dtype), pairs)
-            # padded diagonal tiles contribute matern(0)=1 per padded row
+            # sum of squared *tapered* entries over active tiles; padded
+            # diagonal tiles contribute matern(0)=1 per padded row
+            acc = _blocksparse_frobenius2_xla(
+                self.points_sorted, jnp.asarray(self.pair_i),
+                jnp.asarray(self.pair_j), self.nu, self.threshold,
+                self.tile)
             return acc - (self.n_pad - self._n)
         raise ValueError("exponent must be 0, 1 or 2")
+
+
+def _pair_tiles(pts, pair_i, pair_j, nu, tau, t):
+    """Tapered kernel tiles (C, t, t) of a chunk of active pairs."""
+    num_tiles = pts.shape[0] // t
+    tiles = pts.reshape(num_tiles, t, pts.shape[1])
+    rows, cols = tiles[pair_i], tiles[pair_j]
+    d2 = jnp.sum((rows[:, :, None, :] - cols[:, None, :, :]) ** 2, axis=-1)
+    kblk = kernels.matern(jnp.sqrt(d2), nu)
+    return jnp.where(kblk >= tau, kblk, 0.0)
+
+
+# active tile pairs per step of the plain XLA path: a (64, 512, 512) f32
+# tile batch is 64 MB
+_PAIR_CHUNK = 64
+
+
+def _chunk_pairs(pair_i, pair_j, chunk, dtype):
+    """Pairs as (num_chunks, chunk) arrays plus a 0/1 weight; the last
+    chunk is padded with zero-weight repeats of pair 0."""
+    num_pairs = pair_i.shape[0]
+    chunk = min(chunk, num_pairs)
+    pad = -num_pairs % chunk
+    w = (jnp.arange(num_pairs + pad) < num_pairs).astype(dtype)
+    return (jnp.pad(pair_i, (0, pad)).reshape(-1, chunk),
+            jnp.pad(pair_j, (0, pad)).reshape(-1, chunk),
+            w.reshape(-1, chunk))
+
+
+@partial(jax.jit, static_argnames=("nu", "tau", "t", "chunk"))
+def _blocksparse_matmat_xla(pts, Vs, pair_i, pair_j, nu, tau, t,
+                            chunk=_PAIR_CHUNK):
+    """Plain XLA block-sparse K @ V: ``chunk`` active pairs per step are
+    gathered, evaluated as one batched tile product and segment-summed
+    into their row tiles."""
+    num_tiles = pts.shape[0] // t
+    Vt = Vs.reshape(num_tiles, t, Vs.shape[1])
+
+    def body(out, c):
+        ci, cj, cw = c
+        kblk = _pair_tiles(pts, ci, cj, nu, tau, t)
+        acc = jnp.einsum("cab,cbr->car", kblk, Vt[cj] * cw[:, None, None],
+                         precision="highest")
+        return out.at[ci].add(acc), None
+
+    out, _ = jax.lax.scan(body, jnp.zeros_like(Vt),
+                          _chunk_pairs(pair_i, pair_j, chunk, Vs.dtype))
+    return out.reshape(Vs.shape)
+
+
+@partial(jax.jit, static_argnames=("nu", "tau", "t", "chunk"))
+def _blocksparse_frobenius2_xla(pts, pair_i, pair_j, nu, tau, t,
+                                chunk=_PAIR_CHUNK):
+    """Sum of the squared tapered entries over the active tile pairs."""
+    def body(acc, c):
+        ci, cj, cw = c
+        kblk = _pair_tiles(pts, ci, cj, nu, tau, t)
+        return acc + jnp.sum(kblk * kblk * cw[:, None, None]), None
+
+    acc, _ = jax.lax.scan(body, jnp.zeros((), pts.dtype),
+                          _chunk_pairs(pair_i, pair_j, chunk, pts.dtype))
+    return acc

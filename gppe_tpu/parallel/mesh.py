@@ -1,6 +1,6 @@
 """Device meshes and multi-host initialization.
 
-TPU-native replacement for the reference's process/MPI concurrency layer
+Replacement for the reference's process/MPI concurrency layer
 (reference: multiprocessing pools at examples/FindOptimalCovarianceParameters.py:676-690,
 Intel-MPI submission at jobfile.pbs:34-63). The two parallel axes of this
 domain:
@@ -10,8 +10,8 @@ domain:
   parallelism; no communication except final psum-means.
 * ``block`` — row-block sharding of the operator/vectors over n. The
   analog of tensor parallelism: matvecs need an all-gather of the
-  (sharded) vector and reductions psum along this axis; collectives ride
-  ICI.
+  (sharded) vector and reductions psum along this axis (NVLink between
+  the cards of one host).
 """
 
 import numpy as np
@@ -48,18 +48,14 @@ def make_mesh(n_devices=None, probe=None, devices=None):
 
 
 def multihost_init(coordinator_address=None, num_processes=None,
-                   process_id=None, auto=False):
-    """Initialize the JAX distributed runtime (multi-host pod slices).
+                   process_id=None):
+    """Initialize the JAX distributed runtime (multi-host meshes).
 
     The replacement for the reference's mpirun/PBS layer
-    (jobfile.pbs:34-63); call once per host before any jax op. No-op when
-    running single-process. ``auto=True`` delegates peer discovery to
-    jax.distributed.initialize()'s Cloud-TPU metadata auto-detection —
-    the mode drivers/launch_pod.sh runs every worker in.
+    (jobfile.pbs:34-63); call once per host before any jax op, with an
+    explicit ``coordinator_address`` ('host:port'), process count and
+    process id. No-op when running single-process.
     """
-    if auto:
-        jax.distributed.initialize()
-        return
     if num_processes is None or num_processes <= 1:
         return
     jax.distributed.initialize(coordinator_address=coordinator_address,

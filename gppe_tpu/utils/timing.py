@@ -3,7 +3,7 @@
 Port of the reference's measurement tooling
 (reference: examples/_utilities/processing_time_utilities.py:29-162 —
 TimeCounter accumulator, single-processor pinning for honest CPU time,
-process_time shim) extended with the TPU-native equivalents: wall-clock
+process_time shim) extended with the accelerator equivalents: wall-clock
 phase timers that block on device work, and jax.profiler trace capture.
 """
 
@@ -41,7 +41,7 @@ class TimeCounter:
 @contextlib.contextmanager
 def phase_timer(name, results=None, block=True, verbose=False):
     """Wall-clock a phase, blocking on outstanding device work so the
-    measurement is honest (the TPU analog of the reference's CPU-time
+    measurement is honest (the device analog of the reference's CPU-time
     bracketing, CompareVariousNumberOfPoints.py:67-78)."""
     if block:
         jax.effects_barrier()
@@ -58,7 +58,7 @@ def phase_timer(name, results=None, block=True, verbose=False):
 
 def restrict_computation_to_single_processor():
     """Pin host BLAS/OpenMP pools to one thread for fair CPU comparisons
-    (reference :122-144). Device (TPU) execution is unaffected."""
+    (reference :122-144). Device execution is unaffected."""
     for var in ("OMP_NUM_THREADS", "OPENBLAS_NUM_THREADS",
                 "MKL_NUM_THREADS", "VECLIB_MAXIMUM_THREADS",
                 "NUMEXPR_NUM_THREADS"):

@@ -1,6 +1,6 @@
 """End-to-end flows through the public package surface.
 
-These are the configurations the verify recipe drives on the real TPU;
+These are the configurations the verify recipe drives on the GPU;
 in CI they run on the virtual CPU mesh (conftest forces cpu + x64). The
 known-optimum constants are cross-checked against the f64 CPU path and
 the reference's semantics (same data seed 31, same model).

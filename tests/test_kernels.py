@@ -105,50 +105,22 @@ def test_generate_correlation_facade():
     np.testing.assert_allclose(np.diag(K), 1.0, atol=1e-12)
 
 
-def test_bf16x3_symmetry():
-    """dot_mode='bf16x3' rounds the operand (v_hi/v_lo split), so
-    v -> K@v is not exactly linear and u.(Kv) != v.(Ku) at ~1e-6
-    (ADVICE r2: bound the effect and keep the exact default covered).
-    'highest' must be symmetric to f32 roundoff."""
-    import jax.numpy as jnp
-
-    from gppe_tpu.ops import pallas_kernels as pk
-
-    rng = np.random.RandomState(9)
-    pts = np.asarray(rng.rand(128, 2), np.float32)
-    u = np.asarray(rng.standard_normal((128, 1)), np.float32)
-    v = np.asarray(rng.standard_normal((128, 1)), np.float32)
-
-    def pairing(dot_mode):
-        Ku = pk.matern_matmat(pts, 0.1, u, 0.5, tile_m=128, tile_n=128,
-                              dot_mode=dot_mode, interpret=True)
-        Kv = pk.matern_matmat(pts, 0.1, v, 0.5, tile_m=128, tile_n=128,
-                              dot_mode=dot_mode, interpret=True)
-        a = float(jnp.vdot(jnp.asarray(u), Kv))
-        b = float(jnp.vdot(jnp.asarray(v), Ku))
-        return a, b
-
-    a, b = pairing("highest")
-    scale = max(abs(a), 1.0)
-    assert abs(a - b) / scale < 1e-6          # exact mode: symmetric
-    a3, b3 = pairing("bf16x3")
-    assert abs(a3 - b3) / scale < 1e-4        # compensated: bounded skew
-    assert abs(a3 - a) / scale < 1e-4         # and accurate vs exact
-
-
 def test_multirho_frobenius_output():
-    """trace(K_b^2) accumulated inside the multirho kernel (ADVICE r3:
-    shares one distance pass across the rho batch) vs dense numpy."""
-    from gppe_tpu.ops import pallas_kernels
+    """The multirho kernel's products and the trace(K_b^2) the grid
+    engines pair with it (the plain blocked reduction) vs dense numpy."""
+    import jax
+    import jax.numpy as jnp
+    from gppe_tpu.ops import operators, pallas_kernels
 
     rng = np.random.RandomState(3)
     n = 300
     pts = rng.rand(n, 2)
     rhos = np.asarray([0.07, 0.15])
     V = rng.standard_normal((2, n, 3)).astype(np.float32)
-    out, tk2 = pallas_kernels.matern_matmat_multirho(
-        pts, rhos, V, 0.5, tile=128, interpret=True,
-        return_frobenius=True)
+    out = pallas_kernels.matern_matmat_multirho(pts, rhos, V, 0.5,
+                                                interpret=True)
+    tk2 = jax.lax.map(lambda rho: operators._matern_frobenius2_blocked(
+        jnp.asarray(pts), jnp.full((2,), rho), 0.5, 128), jnp.asarray(rhos))
     for b, rho in enumerate(rhos):
         d = np.sqrt(((pts[:, None, :] - pts[None, :, :]) ** 2).sum(-1)) / rho
         K = np.exp(-d)
@@ -157,25 +129,3 @@ def test_multirho_frobenius_output():
         np.testing.assert_allclose(np.asarray(out[b]),
                                    K @ V[b].astype(np.float64),
                                    rtol=1e-4, atol=1e-4)
-
-
-def test_gram_dist_mode_accuracy():
-    """dist_mode='gram' (MXU Gram-form distance, the roofline
-    experiment): must agree with f64 dense to the documented envelope —
-    ~1e-4 Frobenius-relative, with worst-case ~5e-3 absolute entries on
-    near-coincident pairs (sqrt amplification of the norm-term
-    cancellation; the default 'diff' form stays at ~1e-7/1e-5)."""
-    import numpy as np
-    from gppe_tpu.ops import pallas_kernels
-
-    rng = np.random.RandomState(5)
-    pts = rng.rand(640, 2).astype(np.float32)
-    V = rng.standard_normal((640, 4)).astype(np.float32)
-    d = np.sqrt(((pts[:, None, :].astype(np.float64)
-                  - pts[None, :, :].astype(np.float64)) ** 2).sum(-1)) / 0.1
-    want = np.exp(-d) @ V.astype(np.float64)
-    got = np.asarray(pallas_kernels.matern_matmat(
-        pts, 0.1, V, 0.5, dist_mode="gram", interpret=True))
-    frob = np.linalg.norm(got - want) / np.linalg.norm(want)
-    assert frob < 1e-3, frob
-    assert np.max(np.abs(got - want)) < 2e-2

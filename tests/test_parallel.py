@@ -1,5 +1,5 @@
 """Multi-device tests on the virtual 8-device CPU mesh
-(the TPU-pod substitute, SURVEY.md §4)."""
+(the multi-GPU substitute, SURVEY.md §4)."""
 
 import jax
 import jax.numpy as jnp

@@ -40,12 +40,26 @@ def dense_tapered(pts, scale, nu, density):
 def test_csr_matches_dense_taper():
     pts = data_utils.generate_points(20, dimension=2)  # n=400
     Kd, tau = dense_tapered(pts, 0.05, 0.5, 0.02)
-    csr = taper.generate_tapered_correlation(pts, 0.05, 0.5, 0.02,
-                                             block_rows=128)
+    csr = taper.generate_tapered_correlation(pts, 0.05, 0.5, 0.02)
     np.testing.assert_allclose(csr.toarray(), Kd, atol=1e-12)
     # density is approximately the request (within geometry slack)
     got_density = csr.nnz / 400 ** 2
     assert 0.1 * 0.02 < got_density < 10 * 0.02
+
+
+@pytest.mark.parametrize("nu,grid", [(0.5, True), (1.5, False),
+                                     (0.77, False)])
+def test_csr_fallback_matches_dense_taper(monkeypatch, nu, grid):
+    """The KD-tree builder (no native library) keeps exactly k >= tau,
+    including the many equal distances of a grid."""
+    from gppe_tpu import native
+
+    monkeypatch.setattr(native, "taper_csr", lambda *a, **k: None)
+    pts = (data_utils.generate_points(20, dimension=2) if grid
+           else np.random.default_rng(3).random((300, 2)))
+    Kd, _ = dense_tapered(pts, 0.05, nu, 0.02)
+    csr = taper.generate_tapered_correlation(pts, 0.05, nu, 0.02)
+    np.testing.assert_allclose(csr.toarray(), Kd, atol=1e-12)
 
 
 def test_block_sparse_operator_matches_tapered_dense():
@@ -92,10 +106,9 @@ def test_generate_correlation_sparse_facade():
 
 
 def test_blocksparse_pallas_interpret_matches():
-    """Pallas blocksparse path (interpret mode) vs the XLA taper matvec —
-    the regression test for the r2 TypeError (missing dot_mode,
-    ADVICE r2 high): the kernel itself must execute, not just the
-    use_pallas=False path."""
+    """Pallas blocksparse kernel (interpret mode, CSR row pointers) vs
+    the plain XLA taper matvec: the kernel itself must execute, not just
+    the use_pallas=False path."""
     import jax.numpy as jnp
     from gppe_tpu.ops import pallas_kernels, taper
 
@@ -112,6 +125,6 @@ def test_blocksparse_pallas_interpret_matches():
             [Vs, np.zeros((op.n_pad - 600, 3), np.float32)], axis=0)
     out_sorted = np.asarray(pallas_kernels.matern_matmat_blocksparse(
         op.points_sorted, Vs, op.nu, op.threshold,
-        op.pair_i, op.pair_j, op.tile, interpret=True))
+        op.rowptr, op.pair_j, op.tile, interpret=True))
     got = out_sorted[:600][op.inv_perm]
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
